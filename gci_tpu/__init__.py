@@ -1,10 +1,10 @@
-"""gci_tpu — a TPU-native genome continuity engine.
+"""gci_tpu — a genome continuity engine on JAX.
 
 A from-scratch framework with the capabilities of GCI (Genome Continuity
 Inspector; Chen et al., Bioinformatics 2024, reference repo yeeus/GCI):
 long-read alignments (BAM/PAF) of HiFi / ONT reads mapped back to an assembly
 are packed on host into fixed-width coordinate tensors, filtered with
-vectorized masks, accumulated into per-base coverage on TPU via a
+vectorized masks, accumulated into per-base coverage on the GPU via a
 difference-array scatter + sharded parallel prefix-sum, scanned for low/zero
 depth issue intervals, and scored with the GCI continuity formula — with
 byte-compatible ``.depth.gz`` / ``.depth.bed`` / ``.gci`` outputs.

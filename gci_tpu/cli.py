@@ -1,7 +1,7 @@
 """Main CLI — flag surface of the reference driver (GCI.py:1031-1113).
 
 Identical flags, defaults, validation messages and startup argument echo,
-plus TPU-specific extensions (``--device``, ``--threads`` meaning host packer
+plus device extensions (``--device``, ``--threads`` meaning host packer
 threads).
 """
 from __future__ import annotations
@@ -18,7 +18,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog=sys.argv[0],
         add_help=False,
         formatter_class=argparse.RawTextHelpFormatter,
-        description="A TPU-native program for assessing the T2T genome",
+        description="A GPU-accelerated program for assessing the T2T genome",
         epilog=(
             "Examples:\ngci -r ref.fa --hifi hifi.bam hifi.paf ... "
             "--nano nano.bam nano.paf ..."
@@ -113,46 +113,44 @@ def build_parser() -> argparse.ArgumentParser:
         help="The format of the output images: png or pdf [png]",
     )
 
-    group_tpu = parser.add_argument_group("TPU/Runtime Options")
-    group_tpu.add_argument(
+    group_dev = parser.add_argument_group("Device/Runtime Options")
+    group_dev.add_argument(
         "--device", dest="depth_backend", metavar="STR",
         choices=["auto", "device", "numpy", "events", "sharded", "streamed"],
         default="auto",
-        help="Per-base depth backend: auto (device when a colocated TPU is "
-        "attached — a dispatch-latency probe rules out tunneled/remote "
-        "chips where per-call overhead dominates — else events), device "
-        "(single chip, fused kernel; auto-streams past HBM), numpy, events "
-        "(O(reads) event-space — no per-base arrays; fastest on host, "
-        "identical outputs), sharded (multi-chip: genome axis sharded over "
-        "a device mesh), or streamed (chunked device scan for >HBM "
-        "genomes) [auto]",
+        help="Per-base depth backend: auto (device on a GPU or other "
+        "accelerator, else events), device (one GPU, fused scan kernel; "
+        "streams in chunks past the card's memory), numpy, events "
+        "(O(reads) event-space — no per-base arrays; host only, identical "
+        "outputs), sharded (several GPUs: genome axis sharded over a device "
+        "mesh), or streamed (chunked device scan) [auto]",
     )
-    group_tpu.add_argument(
+    group_dev.add_argument(
         "--mesh", metavar="DP,GP", default=None,
         help="Device mesh for the sharded backend as 'dp,gp' (data-parallel "
         "reads x genome-axis shards), or 'auto' to span all local devices; "
         "implies --device sharded [None]",
     )
-    group_tpu.add_argument(
+    group_dev.add_argument(
         "--coordinator", metavar="HOST:PORT", default=None,
         help="Multi-host runs: jax.distributed coordinator address (launch "
         "one process per host with --num-processes/--process-id; process 0 "
         "writes the outputs). Unset: single-process, or auto-detected from "
         "the cluster environment [None]",
     )
-    group_tpu.add_argument(
+    group_dev.add_argument(
         "--num-processes", metavar="INT", type=int, default=None,
         help="Multi-host runs: total number of processes [None]",
     )
-    group_tpu.add_argument(
+    group_dev.add_argument(
         "--process-id", metavar="INT", type=int, default=None,
         help="Multi-host runs: this process's index [None]",
     )
-    group_tpu.add_argument(
+    group_dev.add_argument(
         "--profile", action="store_const", const=True, default=False,
         help="Print per-stage wall-clock/throughput metrics at the end [False]",
     )
-    group_tpu.add_argument(
+    group_dev.add_argument(
         "--profile-trace", metavar="DIR", default=None,
         help="Write a JAX profiler trace of the run to DIR",
     )

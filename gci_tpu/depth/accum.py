@@ -8,7 +8,7 @@ concatenated axis with one sentinel slot per target (so a stop at position
 L_t stays inside the target's slots) makes the prefix sum *global*: within
 each target the deltas cancel, so the running sum re-zeroes at every target
 boundary and one cumsum yields all per-base depths.  This is the
-scan-friendly formulation that shards across TPU chips (per-shard cumsum +
+scan-friendly formulation that shards across devices (per-shard scan +
 exclusive scan of shard totals; see gci_tpu.depth.device).
 
 Clamp semantics replicate numpy/python slice arithmetic on the reference's
@@ -22,10 +22,27 @@ from dataclasses import dataclass
 import numpy as np
 
 
-# above this many slots the resident single-chip layouts (delta + depth +
-# edge buffers) would crowd a v5e's HBM — auto paths switch to the streamed
-# chunked form (gci_tpu.depth.streamed)
-STREAM_SLOT_LIMIT = 1_200_000_000
+# the resident axis is indexed by int32 slot numbers
+INT32_SLOTS = 2**31 - 1
+# peak device bytes per genome slot of a resident run: measured 29.0 (peak
+# bytes in use over slots of a dual-type 396M-slot run on an H100; the
+# construction's packed word, depth, flags and compaction ranks), plus
+# headroom
+RESIDENT_BYTES_PER_SLOT = 32
+
+
+def stream_slot_limit() -> int:
+    """Largest genome axis the resident single-device path takes; the
+    ``device`` backend streams larger ones in chunks
+    (gci_tpu.depth.streamed).  The smaller of the int32 index bound and
+    what the device allocator's ``bytes_limit`` holds at
+    ``RESIDENT_BYTES_PER_SLOT``."""
+    import jax
+
+    stats = jax.devices()[0].memory_stats() or {}
+    if "bytes_limit" not in stats:
+        return INT32_SLOTS
+    return min(INT32_SLOTS, int(stats["bytes_limit"]) // RESIDENT_BYTES_PER_SLOT)
 
 
 @dataclass(frozen=True)
@@ -98,27 +115,20 @@ def accumulate_depth(
     flank_len: int = 15,
     backend: str = "auto",
 ) -> np.ndarray:
-    """Flat per-slot depth; device (TPU pallas scan) or host numpy backend.
+    """Flat per-slot depth; device scan or host numpy backend.
 
-    backend: "auto" uses the accelerator when jax's default backend is not
+    backend: "auto" uses the device when jax's default backend is not the
     cpu; "device" forces it; "numpy" forces the host path.  Both produce
     identical int32 results (tests assert equality).
     """
-    use_device = False
-    if backend == "device":
-        use_device = True
-    elif backend == "auto":
-        try:
-            import jax
+    if backend == "auto":
+        import jax
 
-            use_device = jax.default_backend() not in ("cpu",)
-        except Exception:
-            use_device = False
-    if not use_device:
+        backend = "numpy" if jax.default_backend() == "cpu" else "device"
+    if backend != "device":
         return accumulate_depth_numpy(layout, target_id, start, end, flank_len)
 
-    # genomes whose delta+depth buffers would crowd HBM stream in chunks
-    if layout.total_slots > STREAM_SLOT_LIMIT:
+    if layout.total_slots > stream_slot_limit():
         from gci_tpu.depth.streamed import accumulate_depth_streamed
 
         return accumulate_depth_streamed(
@@ -127,16 +137,14 @@ def accumulate_depth(
 
     import jax.numpy as jnp
 
-    from gci_tpu.depth.pallas_scan import depth_scan, LANES, DEF_ROWS
+    from gci_tpu.depth.scan import pad_to_block, prefix_sum
 
-    chunk = DEF_ROWS * LANES
     total = layout.total_slots
-    total_padded = total + ((-total) % chunk)
     gs, ge, live = _pack_deltas(layout, target_id, start, end, flank_len)
-    delta = jnp.zeros(total_padded, jnp.int32)
+    delta = jnp.zeros(pad_to_block(total), jnp.int32)
     delta = delta.at[jnp.asarray(gs)].add(jnp.asarray(live), mode="drop")
     delta = delta.at[jnp.asarray(ge)].add(-jnp.asarray(live), mode="drop")
-    depth = depth_scan(delta)
+    depth = prefix_sum(delta)
     return np.asarray(depth[:total])
 
 

@@ -12,10 +12,10 @@ device (asynchronously) while the native producer inflates the next chunk.
 
 Two consumers:
 
-* ``DeviceDepth.from_delta``  — single-chip fused path (<= 2^31 slots);
-* ``events_from_delta2d_streamed`` — the >HBM streamed path; the resident
-  delta lives as a (n_chunks, chunk_slots) int32 array so scatter indices
-  stay int32 (global slots can exceed 2^31).
+* ``DeviceDepth.from_delta``  — the single-device resident path;
+* ``events_from_delta2d_streamed`` — the streamed path; the resident delta
+  lives as a (n_chunks, chunk_slots) int32 array so scatter indices stay
+  int32 (global slots can exceed 2^31).
 """
 from __future__ import annotations
 
@@ -147,15 +147,6 @@ class DeltaAccumulator:
         """The accumulated delta as a flat (n_chunks*chunk_slots,) view."""
         return self.delta2d.reshape(-1)
 
-    def release(self) -> None:
-        """Free the resident delta immediately (fallback path: the classic
-        depth computation needs the HBM this buffer holds)."""
-        try:
-            self.delta2d.delete()
-        except Exception:
-            pass
-        self.delta2d = None
-
 
 def _adjust_range(idx: np.ndarray, vals: np.ndarray, a: int, b: int,
                   dv: int, insert_a: bool, val_at_a: int,
@@ -190,36 +181,32 @@ def _adjust_range(idx: np.ndarray, vals: np.ndarray, a: int, b: int,
 
 
 class SweepAccumulator:
-    """Coordinate-sweep pack<->scan overlap for the >HBM streamed backend.
+    """Coordinate-sweep pack<->scan overlap for the streamed backend.
 
     A coordinate-sorted BAM visits the concatenated genome axis
     monotonically, so only the genome chunks near the read frontier need a
     live device delta buffer: once every future read starts past a chunk's
-    end, the chunk is *final* — its fused scan + run-boundary compaction
-    dispatch immediately (while the native producer inflates the next BAM
-    chunk) and its buffer frees.  Peak device memory is O(live chunks),
-    independent of genome size — the whole-genome resident delta that
-    cannot fit beside the scan workspaces on one v5e never exists.
+    end, the chunk is *final* — its scan + run-boundary compaction dispatch
+    immediately (while the native producer inflates the next BAM chunk) and
+    its buffer frees.  Peak device memory is O(live chunks), independent of
+    genome size: no whole-genome resident delta ever exists.
 
     Last-wins retraction: a re-appearing read name retracts the stored
     record as a -1 range update, split at the finalization frontier —
     the live part scatters like any delta, the (rare) finalized part is an
     exact event-space fixup on the already-compacted runs.  An unsorted
-    input simply never finalizes early (correct, memory-heavier; the
-    pipeline's try/except falls back on OOM).
+    input simply never finalizes early (correct, memory-heavier).
     """
 
     mode = "sweep"
 
     def __init__(self, layout: GenomeLayout, flank_len: int,
-                 chunk_slots: int, kernel: str = "auto"):
+                 chunk_slots: int):
+        from gci_tpu.depth.streamed import resident_chunk_slots
+
         self.layout = layout
         self.flank_len = flank_len
-        from gci_tpu.depth.streamed import _resolve_kernel
-
-        self._scan, self.chunk_slots = _resolve_kernel(
-            kernel, chunk_slots, None, layout.total_slots
-        )
+        self.chunk_slots = resident_chunk_slots(layout.total_slots, chunk_slots)
         self.total = layout.total_slots
         self.n_chunks = -(-self.total // self.chunk_slots)
         self._live: dict[int, object] = {}  # chunk -> device delta or None
@@ -356,6 +343,7 @@ class SweepAccumulator:
         import jax
         import jax.numpy as jnp
 
+        from gci_tpu.depth.scan import prefix_sum as scan
         from gci_tpu.depth.streamed import _compact_gather_fn
 
         c = self.frontier
@@ -365,7 +353,6 @@ class SweepAccumulator:
         if delta is None:
             delta = jnp.zeros(self.chunk_slots, jnp.int32)
         if self._step_fn is None:
-            scan = self._scan
 
             @jax.jit
             def step(delta, carry, prev0):
@@ -419,8 +406,7 @@ class SweepAccumulator:
             batch_min = int(gs[live].min())
             if batch_min < self._max_seen_start:
                 # unsorted input: stop finalizing early, permanently — every
-                # chunk stays live until finish() (correct, memory-heavier;
-                # the pipeline's try/except falls back on OOM)
+                # chunk stays live until finish() (correct, memory-heavier)
                 self._unsorted = True
             self._max_seen_start = max(self._max_seen_start, batch_min)
             if not self._unsorted:
@@ -450,11 +436,3 @@ class SweepAccumulator:
             return vals[np.clip(pos, 0, None)]
 
         return events_from_change_indices(self.layout, idx, gather)
-
-    def release(self) -> None:
-        for c, buf in list(self._live.items()):
-            try:
-                buf.delete()
-            except Exception:
-                pass
-        self._live.clear()

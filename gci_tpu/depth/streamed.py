@@ -1,18 +1,18 @@
 """Streamed depth accumulation for genomes larger than device memory.
 
-A 3.1 Gbp assembly needs ~12.5 GB for the int32 delta axis plus the same for
-the depth output — beyond a single v5e's HBM once workspaces are counted.
-This path processes the concatenated genome axis in fixed-size chunks:
+A genome whose resident axis would not fit beside its workspaces in device
+memory, or would exceed int32 slot indexing (``accum.stream_slot_limit``),
+is processed in fixed-size chunks of the concatenated genome axis:
 
 * read events (start:+1, stop:-1 slots) are host-sorted once (int64); each
   chunk's event slice is found with two searchsorted calls;
 * the chunk carry (depth just before the chunk) is exact:
   ``#starts < a  −  #stops < a`` — no sequential dependency between chunks
   beyond two binary searches, so chunks could even run on different devices;
-* per chunk the device scatters its events and runs the pallas prefix-sum
-  kernel (XLA cumsum fallback off-TPU), the host pulls the finished chunk.
+* per chunk the device scatters its events and runs the prefix-sum scan
+  (gci_tpu.depth.scan.prefix_sum), the host pulls the finished chunk.
 
-HBM usage is O(chunk), independent of genome size.  Two consumers:
+Device memory is O(chunk), independent of genome size.  Two consumers:
 
 * ``accumulate_depth_streamed`` — the flat per-base array (oracle/tests and
   hosts with per-base room);
@@ -52,39 +52,18 @@ def _chunk_plan(total, gs, ge, chunk_slots):
     return n_chunks, bounds, gs_lo, gs_hi, ge_lo, ge_hi, max_ev
 
 
-def _resolve_kernel(
-    kernel: str, chunk_slots: int, pallas_rows: int | None, total: int
-):
-    """(scan_fn, aligned_chunk_slots) for one streamed chunk."""
-    import jax
-    import jax.numpy as jnp
+CHUNK_SLOTS = 256 * 1024 * 1024
 
-    from gci_tpu.depth.pallas_scan import DEF_ROWS, LANES, depth_scan
 
-    on_tpu = jax.default_backend() == "tpu"
-    use_pallas = kernel == "pallas" or (kernel == "auto" and on_tpu)
-    if not use_pallas:
-        return (lambda delta: jnp.cumsum(delta)), max(1, min(chunk_slots, total))
-    rows = pallas_rows or DEF_ROWS
-    tile = rows * LANES
-    # never a chunk larger than the (tile-aligned) genome itself
-    chunk_slots = min(chunk_slots, total + ((-total) % tile))
-    chunk_slots = max(tile, (chunk_slots // tile) * tile)
-    # bucket the chunk size to powers of two of the tile: every distinct
-    # Pallas grid is a separate multi-minute remote Mosaic compile (same
-    # rationale as DeviceDepth.pad_total_for), so a genome-derived chunk
-    # size would pay a fresh compile per genome; the padded tail carries
-    # zero deltas
-    p = tile
-    while p < chunk_slots:
-        p *= 2
-    chunk_slots = p
-    interp = not on_tpu  # off-TPU pallas runs in interpret mode (tests)
+def resident_chunk_slots(total: int, chunk_slots: int = CHUNK_SLOTS) -> int:
+    """The chunk size the streamed scan uses: a whole number of scan blocks,
+    no larger than the block-padded genome.  The overlap accumulators shape
+    their device deltas with the same value; a padded tail carries zero
+    deltas."""
+    from gci_tpu.depth.scan import BLOCK, pad_to_block
 
-    def scan(delta):
-        return depth_scan(delta, rows=rows, interpret=interp)
-
-    return scan, chunk_slots
+    chunk_slots = min(chunk_slots, pad_to_block(total))
+    return max(BLOCK, chunk_slots - chunk_slots % BLOCK)
 
 
 def _iter_depth_chunks(
@@ -94,15 +73,15 @@ def _iter_depth_chunks(
     end: np.ndarray,
     flank_len: int,
     chunk_slots: int,
-    kernel: str,
-    pallas_rows: int | None = None,
 ):
     """Yield (a, b, depth_chunk_device, carry) over the concatenated axis."""
     import jax
     import jax.numpy as jnp
 
+    from gci_tpu.depth.scan import prefix_sum as scan
+
     total = layout.total_slots
-    scan, chunk_slots = _resolve_kernel(kernel, chunk_slots, pallas_rows, total)
+    chunk_slots = resident_chunk_slots(total, chunk_slots)
     gs, ge = _sorted_events(layout, target_id, start, end, flank_len)
     n_chunks, bounds, gs_lo, gs_hi, ge_lo, ge_hi, max_ev = _chunk_plan(
         total, gs, ge, chunk_slots
@@ -139,15 +118,12 @@ def accumulate_depth_streamed(
     start: np.ndarray,
     end: np.ndarray,
     flank_len: int = 15,
-    chunk_slots: int = 256 * 1024 * 1024,
-    kernel: str = "auto",
-    pallas_rows: int | None = None,
+    chunk_slots: int = CHUNK_SLOTS,
 ) -> np.ndarray:
     """Flat per-slot int32 depth, computed chunk-by-chunk on device."""
     out = np.empty(layout.total_slots, dtype=np.int32)
     for a, b, depth_chunk, _ in _iter_depth_chunks(
-        layout, target_id, start, end, flank_len, chunk_slots, kernel,
-        pallas_rows,
+        layout, target_id, start, end, flank_len, chunk_slots,
     ):
         out[a:b] = np.asarray(depth_chunk[: b - a])
     return out
@@ -156,14 +132,14 @@ def accumulate_depth_streamed(
 @functools.lru_cache(maxsize=64)
 def _compact_gather_fn(size: int):
     """Sort-free compaction + value gather (see fused._compact_fn: a
-    flatnonzero would sort the whole chunk, ~2.5 s per 256Mi slots)."""
+    flatnonzero would sort the whole chunk)."""
     import jax
     import jax.numpy as jnp
 
-    from gci_tpu.depth.device import _local_prefix_sum
+    from gci_tpu.depth.scan import prefix_sum
 
     def f(depth, change):
-        pos = _local_prefix_sum((change != 0).astype(jnp.int32))
+        pos = prefix_sum((change != 0).astype(jnp.int32))
         k = jnp.arange(1, size + 1, dtype=pos.dtype)
         idx = jnp.searchsorted(pos, k)
         idx = jnp.where(k <= pos[-1], idx, -1)
@@ -173,24 +149,10 @@ def _compact_gather_fn(size: int):
     return jax.jit(f)
 
 
-def resident_chunk_slots(
-    total: int,
-    chunk_slots: int = 256 * 1024 * 1024,
-    kernel: str = "auto",
-    pallas_rows: int | None = None,
-) -> int:
-    """The aligned chunk size the streamed scan will use — the overlap
-    accumulator must shape its resident delta with the same value."""
-    _, aligned = _resolve_kernel(kernel, chunk_slots, pallas_rows, total)
-    return aligned
-
-
 def events_from_delta2d_streamed(
     layout: GenomeLayout,
     delta2d,
-    chunk_slots: int = 256 * 1024 * 1024,
-    kernel: str = "auto",
-    pallas_rows: int | None = None,
+    chunk_slots: int = CHUNK_SLOTS,
 ):
     """{target: DepthEvents} from a device-resident (n_chunks, chunk_slots)
     delta (the pack<->scatter overlap path).
@@ -204,11 +166,13 @@ def events_from_delta2d_streamed(
     import jax.numpy as jnp
 
     from gci_tpu.depth.base import events_from_change_indices
+    from gci_tpu.depth.scan import prefix_sum as scan
 
     total = layout.total_slots
-    scan, aligned = _resolve_kernel(kernel, chunk_slots, pallas_rows, total)
     n_chunks, cs = delta2d.shape
-    assert cs == aligned, "resident delta chunking must match the scan plan"
+    assert cs == resident_chunk_slots(total, chunk_slots), (
+        "resident delta chunking must match the scan plan"
+    )
 
     sums = np.asarray(
         jax.jit(lambda d: jnp.sum(d, axis=1, dtype=jnp.int32))(delta2d)
@@ -264,11 +228,9 @@ def events_from_reads_streamed(
     start: np.ndarray,
     end: np.ndarray,
     flank_len: int = 15,
-    chunk_slots: int = 256 * 1024 * 1024,
-    kernel: str = "auto",
-    pallas_rows: int | None = None,
+    chunk_slots: int = CHUNK_SLOTS,
 ):
-    """{target: DepthEvents} for a >HBM genome — O(runs) everywhere.
+    """{target: DepthEvents} for a streamed genome — O(runs) everywhere.
 
     Per chunk: run-boundary bitmap on device (seeded with the exact carry,
     so runs spanning chunk borders produce no spurious boundary), device
@@ -277,18 +239,17 @@ def events_from_reads_streamed(
     pipeline — including the issue BED (GCI.py:356-390) and the checkpoint
     writer (GCI.py:99-143) — never touches a per-base array.
 
-    Dispatch economy: TWO device calls per chunk (scan+change+count with a
-    scalar readback, then a static-size compaction+gather) — per-call
-    round-trip latency, not kernel time, dominates chunked streaming on
-    high-latency links.
+    Two device calls per chunk: scan+change+count with a scalar readback,
+    then a static-size compaction+gather.
     """
     import jax
     import jax.numpy as jnp
 
     from gci_tpu.depth.base import events_from_change_indices
+    from gci_tpu.depth.scan import prefix_sum as scan
 
     total = layout.total_slots
-    scan, chunk_slots = _resolve_kernel(kernel, chunk_slots, pallas_rows, total)
+    chunk_slots = resident_chunk_slots(total, chunk_slots)
     gs, ge = _sorted_events(layout, target_id, start, end, flank_len)
     n_chunks, bounds, gs_lo, gs_hi, ge_lo, ge_hi, max_ev = _chunk_plan(
         total, gs, ge, chunk_slots

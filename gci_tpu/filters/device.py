@@ -1,4 +1,4 @@
-"""Device (JAX) filter masks — the TPU perf path of the cascade.
+"""Device (JAX) filter masks — the accelerator path of the cascade.
 
 Same predicates as gci_tpu.filters.cascade (GCI.py:156,165) evaluated
 elementwise on device in float32.  The bit-parity pipeline uses the host

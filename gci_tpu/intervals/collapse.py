@@ -16,7 +16,7 @@ reference's exact edge semantics:
 * an empty scan slice (``L <= 2*flank_len``) yields no runs.
 
 The scan itself is an embarrassingly parallel mask + edge detection, which is
-how the TPU path computes it (elementwise compare + shifted XOR over the
+how the device path computes it (elementwise compare + shifted XOR over the
 sharded genome axis); this module is the host-side/numpy engine plus the
 shared edge→interval compaction used by both paths.
 """

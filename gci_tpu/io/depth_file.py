@@ -280,7 +280,7 @@ def _write_depth_gz_distributed(path: str, depths: dict, compresslevel: int) -> 
 
     The runs->BGZF encoder frames blocks at fixed uncompressed byte offsets,
     so per-range outputs concatenate to exactly the single-writer bytes
-    (asserted by tests/test_multihost.py).  The TPU-native version of the
+    (asserted by tests/test_multihost.py).  The native version of the
     reference's per-chunk gzip fan-out + ``cat`` (GCI.py:99-143) — spread
     over hosts, not just one host's cores.
     """

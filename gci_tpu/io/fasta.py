@@ -7,7 +7,7 @@ the result; an assembly with no Ns at all yields ``None``.
 
 Implementation is vectorized over the raw byte buffer (no per-base Python
 loop): newline-compaction + boolean run extraction, which is also the shape
-of the device kernel used when the reference sequence is resident on TPU.
+a device kernel would take.
 Plain and gzip-compressed FASTA are supported.
 """
 from __future__ import annotations

@@ -21,10 +21,23 @@ _lock = threading.Lock()
 _lib = None
 
 
+def _has_libdeflate() -> bool:
+    """Whether the compiler finds libdeflate's header."""
+    probe = subprocess.run(
+        ["g++", "-x", "c++", "-E", "-o", os.devnull, "-"],
+        input=b"#include <libdeflate.h>\n", capture_output=True,
+    )
+    return probe.returncode == 0
+
+
 def _build() -> None:
+    """Compile the library; raw deflate uses libdeflate where its header is
+    installed and zlib otherwise (see gci_native.cpp)."""
+    codec = (["-DGCI_USE_LIBDEFLATE", "-ldeflate"] if _has_libdeflate()
+             else [])
     cmd = [
         "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        "-fvisibility=hidden", _SRC, "-lz", "-ldeflate", "-lpthread",
+        "-fvisibility=hidden", _SRC, *codec, "-lz", "-lpthread",
         "-o", _SO + ".tmp",
     ]
     subprocess.run(cmd, check=True, capture_output=True)
@@ -195,7 +208,12 @@ def get_lib() -> ctypes.CDLL:
             return _lib
         if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
             _build()
-        lib = ctypes.CDLL(_SO)
+        try:
+            lib = ctypes.CDLL(_SO)
+        except OSError:
+            # built elsewhere against libraries this machine lacks
+            _build()
+            lib = ctypes.CDLL(_SO)
         _declare(lib)
         _lib = lib
     return _lib
@@ -682,10 +700,9 @@ class NativeBamStream:
         self._keep_raw = keep_raw
         start, end = comp_range if comp_range is not None else (0, -1)
         if chunk_bytes is None:
-            # measured r5 (2-vCPU host, 8.7 GB-inflated bench BAM): 32 MiB
-            # chunks pack 0.9 s vs 1.3-1.5 s at 64 MiB — small enough for
-            # cache-friendlier inflate->parse reuse, large enough that
-            # per-chunk overheads stay negligible; override to tune
+            # 32 MiB chunks: small enough for cache-friendlier
+            # inflate->parse reuse, large enough that per-chunk overheads
+            # stay negligible; override to tune
             chunk_bytes = int(
                 os.environ.get("GCI_BAM_CHUNK_MB", 32)
             ) << 20

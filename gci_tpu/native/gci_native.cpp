@@ -1,6 +1,6 @@
 // gci_native — C++ host-side packer/codec for the gci_tpu framework.
 //
-// TPU-native replacement for the reference's host toolchain (pysam/htslib
+// Native replacement for the reference's host toolchain (pysam/htslib
 // decode loops, gzip text codecs, subprocessed `samtools`/`cat`):
 //   * streaming gzip/BGZF inflate (multi-member aware, multithreaded BGZF)
 //   * .depth.gz text codec (reference format: ">target\n" + one int per line;
@@ -11,9 +11,86 @@
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in this image).
 // Every hot loop is single-pass and allocation-light; BGZF blocks decompress
 // on a thread pool.
+//
+// Raw-deflate blocks go through libdeflate when the build finds its header
+// (GCI_USE_LIBDEFLATE), else through the zlib stand-in below, which gives
+// the same libdeflate calls over zlib streams: identical decoded bytes,
+// slower inflate, and compressed bytes that may differ from libdeflate's.
 
-#include <libdeflate.h>
 #include <zlib.h>
+
+#ifdef GCI_USE_LIBDEFLATE
+#include <libdeflate.h>
+#else
+#include <algorithm>
+#include <cstddef>
+#include <cstdint>
+
+enum libdeflate_result { LIBDEFLATE_SUCCESS = 0, LIBDEFLATE_BAD_DATA = 1 };
+struct libdeflate_decompressor {
+  z_stream zs;
+};
+struct libdeflate_compressor {
+  z_stream zs;
+};
+
+static libdeflate_decompressor* libdeflate_alloc_decompressor() {
+  auto* d = new libdeflate_decompressor();
+  if (inflateInit2(&d->zs, -15) != Z_OK) {
+    delete d;
+    return nullptr;
+  }
+  return d;
+}
+
+static libdeflate_result libdeflate_deflate_decompress(
+    libdeflate_decompressor* d, const void* in, size_t in_nbytes, void* out,
+    size_t out_nbytes_avail, size_t* actual_out_nbytes) {
+  z_stream& zs = d->zs;
+  if (inflateReset(&zs) != Z_OK) return LIBDEFLATE_BAD_DATA;
+  zs.next_in = (Bytef*)in;
+  zs.avail_in = (uInt)in_nbytes;
+  zs.next_out = (Bytef*)out;
+  zs.avail_out = (uInt)out_nbytes_avail;
+  int r = inflate(&zs, Z_FINISH);
+  *actual_out_nbytes = out_nbytes_avail - zs.avail_out;
+  return r == Z_STREAM_END ? LIBDEFLATE_SUCCESS : LIBDEFLATE_BAD_DATA;
+}
+
+static libdeflate_compressor* libdeflate_alloc_compressor(int level) {
+  auto* c = new libdeflate_compressor();
+  // libdeflate levels run to 12, zlib's to 9
+  if (deflateInit2(&c->zs, std::min(level, 9), Z_DEFLATED, -15, 8,
+                   Z_DEFAULT_STRATEGY) != Z_OK) {
+    delete c;
+    return nullptr;
+  }
+  return c;
+}
+
+static void libdeflate_free_compressor(libdeflate_compressor* c) {
+  deflateEnd(&c->zs);
+  delete c;
+}
+
+// compressed size, or 0 when the output does not fit (as libdeflate)
+static size_t libdeflate_deflate_compress(libdeflate_compressor* c,
+                                          const void* in, size_t in_nbytes,
+                                          void* out, size_t out_nbytes_avail) {
+  z_stream& zs = c->zs;
+  if (deflateReset(&zs) != Z_OK) return 0;
+  zs.next_in = (Bytef*)in;
+  zs.avail_in = (uInt)in_nbytes;
+  zs.next_out = (Bytef*)out;
+  zs.avail_out = (uInt)out_nbytes_avail;
+  int r = deflate(&zs, Z_FINISH);
+  return r == Z_STREAM_END ? out_nbytes_avail - zs.avail_out : 0;
+}
+
+static uint32_t libdeflate_crc32(uint32_t crc, const void* buf, size_t len) {
+  return (uint32_t)crc32(crc, (const Bytef*)buf, (uInt)len);
+}
+#endif
 
 #include <fcntl.h>
 #include <sys/mman.h>
@@ -224,7 +301,7 @@ static bool bgzf_scan(const uint8_t* p, size_t n, std::vector<BgzfBlock>& blocks
 
 // One libdeflate (de)compressor per thread, reused across blocks: allocation
 // is the expensive part and BGZF blocks are single-shot raw-deflate members,
-// libdeflate's ideal case (~2.7x faster than zlib inflate on this host).
+// libdeflate's ideal case.
 static struct libdeflate_decompressor* tl_decompressor() {
   static thread_local struct libdeflate_decompressor* d = nullptr;
   if (!d) d = libdeflate_alloc_decompressor();
@@ -2286,7 +2363,7 @@ GCI_API void gci_druns_copy_target(void* h, int64_t i, int64_t* values,
 // ===========================================================================
 // Streaming BAM reader: bounded-memory chunk pipeline.
 //
-// TPU-native replacement for the reference's windowed pysam fetch
+// Native replacement for the reference's windowed pysam fetch
 // (GCI.py:146-169, task split GCI.py:260-270): a background producer reads
 // BGZF blocks sequentially, inflates them on a small thread pool
 // (libdeflate), walks the record chain across block boundaries, and emits

@@ -1,9 +1,9 @@
 """Multi-host runtime helpers.
 
-On a TPU pod slice each host packs a disjoint shard of the alignment data
-(reads are embarrassingly parallel), devices accumulate partial depth deltas,
-and the dp-axis psum merges them — DCN only carries the all-reduce when dp
-spans hosts.  The reference has no distributed anything (SURVEY.md §2.3);
+On a multi-host cluster each host packs a disjoint shard of the alignment
+data (reads are embarrassingly parallel), devices accumulate partial depth
+deltas, and the dp-axis psum merges them — the network between hosts only
+carries the all-reduce when dp spans hosts.  The reference has no distributed anything (SURVEY.md §2.3);
 this module is the native cluster entry.
 
 Testable pieces (shard assignment, record-range splitting) are pure; the
@@ -22,7 +22,7 @@ def init_multihost(
 ) -> None:
     """Initialize jax.distributed (no-op on single-process runs).
 
-    With no arguments, relies on the cluster environment (TPU metadata /
+    With no arguments, relies on the cluster environment (e.g.
     JAX_COORDINATOR_ADDRESS) exactly like ``jax.distributed.initialize``.
     """
     import jax
@@ -65,7 +65,7 @@ def current_host_shard() -> HostShard:
 def owned_dp_rows(mesh, n_rows: int) -> tuple[int, int]:
     """Contiguous [lo, hi) range of a dp-sharded axis owned by this process.
 
-    This is the per-host input shard: on a pod slice each host packs only the
+    This is the per-host input shard: on a cluster each host packs only the
     read records whose dp chunks live on its own devices; the dp-psum that
     merges the partial depth deltas is then the only cross-host traffic.
     ``n_rows`` must be a multiple of the mesh's dp size.
@@ -93,8 +93,8 @@ def _multiprocess_active() -> bool:
     """True only when jax.distributed was initialized (multi-host run).
 
     ``jax.process_index()/process_count()`` initialize the device backend,
-    which for a remote/tunneled TPU costs seconds-to-minutes — absurd
-    overhead for host-only tools that just need "am I the single writer?".
+    which host-only tools that just need "am I the single writer?" should
+    not pay for (and which would reserve most of a GPU's memory).
     Without a distributed client the answer is always single-process.
     """
     try:

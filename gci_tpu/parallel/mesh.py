@@ -3,15 +3,17 @@
 The engine's parallel axes (SURVEY.md §2.3 mapping):
 
 * ``dp`` — data parallelism over the *reads* axis: each device scatter-adds
-  its read shard's depth deltas; partials merge with an ICI all-reduce
+  its read shard's depth deltas; partials merge with an all-reduce
   (replaces the reference's multiprocessing.Pool over genome windows).
 * ``gp`` — genome-coordinate parallelism (the moral equivalent of sequence
   parallelism here): the concatenated per-base axis is sharded for the
   prefix-sum / interval scans, with collective stitching at shard borders.
 
-On a multi-host pod slice, ``dp`` is laid out over hosts (each host packs a
-disjoint read shard; DCN only crosses for the all-reduce) and ``gp`` rides
-ICI within a slice.
+The cards of one host are joined all to all (NVLink on an H100 host), so
+the mesh follows the algorithm alone and XLA hands the collectives to NCCL.
+Across hosts, ``dp`` is laid out over hosts (each host packs a disjoint
+read shard; the network between hosts only carries the all-reduce) and
+``gp`` stays within a host.
 """
 from __future__ import annotations
 

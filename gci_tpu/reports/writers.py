@@ -35,7 +35,8 @@ def emit_issue_bed(
     """Write the issues BED and return the interval dict (GCI.py:393-419).
 
     ``precomputed`` lets the device pipeline hand over intervals that were
-    already extracted on TPU (identical semantics), skipping the host scan.
+    already extracted on the device (identical semantics), skipping the host
+    scan.
     """
     from gci_tpu.parallel.distributed import is_primary_host
 

@@ -1,55 +1,29 @@
-"""Persistent XLA compile cache wiring — the ONE implementation every entry
-point (CLI, side-car tools, bench, graft entry) shares.
+"""Persistent XLA compile cache wiring — the one implementation every entry
+point (CLI, bench, graft entry, chip smoke) shares.
 
-The fused depth-scan kernel's Mosaic/XLA compile is expensive (minutes on a
-cold remote-compile path), so each entry point enables jax's on-disk
-compilation cache before the first trace.  Cache dir resolution order:
-
-1. explicit ``cache_dir`` argument,
-2. ``$GCI_JAX_CACHE_DIR``,
-3. a source checkout's repo-local ``.jax_cache`` (detected as a ``.jax_cache``
-   or ``pyproject.toml`` sibling of the package dir) — so CLI runs, bench.py
-   and the graft entry all hit the same cache during development,
-4. ``~/.cache/gci_tpu/jax``.
-
-Safe to call multiple times and safe when jax's backend is already
-initialized (the config knobs below are not backend-init-locked).
+When ``JAX_COMPILATION_CACHE_DIR`` is set, jax reads it itself and nothing
+here sets another directory.  Otherwise the cache lives at the fixed
+``.jax_cache/`` of the checkout the package runs from (listed in
+``.gitignore``), so every entry point of one checkout shares one cache.
+Safe to call more than once and after jax's backend is up.
 """
 from __future__ import annotations
 
 import os
 
-_done = False
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
-def default_cache_dir() -> str:
-    env = os.environ.get("GCI_JAX_CACHE_DIR")
-    if env:
-        return env
-    pkg_parent = os.path.dirname(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    )
-    repo_cache = os.path.join(pkg_parent, ".jax_cache")
-    if os.path.isdir(repo_cache) or os.path.exists(
-        os.path.join(pkg_parent, "pyproject.toml")
-    ):
-        return repo_cache
-    return os.path.join(os.path.expanduser("~"), ".cache", "gci_tpu", "jax")
-
-
-def enable_compile_cache(cache_dir: str | None = None) -> None:
-    global _done
-    if _done:
+def enable_compile_cache() -> None:
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    _done = True
+    import jax
+
     try:
-        import jax
-    except Exception:
-        return
-    cache_dir = cache_dir or default_cache_dir()
-    try:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # cache is an optimization; never fail the pipeline over it
+        os.makedirs(CHECKOUT_CACHE_DIR, exist_ok=True)
+    except OSError:
+        return  # read-only checkout: run without a persistent cache
+    jax.config.update("jax_compilation_cache_dir", CHECKOUT_CACHE_DIR)

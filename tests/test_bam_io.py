@@ -304,7 +304,7 @@ def test_stream_corrupt_bgzf_errors(big_bam, tmp_path):
 
 def test_uncompressed_bam_streams_via_whole_file_fallback(tmp_path, rng):
     """Plain (non-BGZF) BAM: BamStream detects the distinct native error
-    and falls back to the whole-file reader (ADVICE r3 item 1)."""
+    and falls back to the whole-file reader."""
     import gzip as _gzip
 
     from gci_tpu.io.bam import BamStream
@@ -330,7 +330,7 @@ def test_header_dominated_range_partitions(tmp_path, seed):
     """Partition invariant when the BAM is mostly HEADER: random cuts land
     inside the header block chain, so the first shard's record walk starts
     from header-spillover carry whose block may belong to a LATER shard —
-    the exact shape of the r5 ownership-leak bug (records double-packed
+    the exact shape of an earlier ownership-leak bug (records double-packed
     when stop_block_coff was only set at EOF)."""
     import os
 

@@ -117,6 +117,6 @@ def test_streamed_depth_matches_numpy(rng):
     want = accumulate_depth_numpy(layout, tid, start, end, 15)
     # tiny chunks force many boundaries + carries; jnp-cumsum kernel on CPU
     got = accumulate_depth_streamed(
-        layout, tid, start, end, 15, chunk_slots=1000, kernel="jnp"
+        layout, tid, start, end, 15, chunk_slots=1000
     )
     np.testing.assert_array_equal(got, want)

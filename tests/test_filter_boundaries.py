@@ -1,6 +1,6 @@
 """Boundary-value differential suite for the alignment-filter half.
 
-VERDICT r4 'Next #5': the BAM/PAF -> depth half was validated only against
+Why: the BAM/PAF -> depth half was otherwise validated only against
 ``tests/oracle_gci.py`` — itself a transcription of the documented reference
 semantics — so a shared misreading would pass every test.  Every case here
 carries LITERAL hand-computed expected values written in the test (worked

@@ -340,8 +340,8 @@ def test_paf_byte_range_sharding_partitions_rows(tmp_path):
 
 def test_paf_shard_partitions_rows_plain_and_gz(tmp_path):
     """shard=(h, H) partitions the row stream exactly — plain AND gzipped
-    (VERDICT r4 'Next #7': gz PAFs shard the tokenize over the uncompressed
-    bytes; inflate is per-host but the expensive part splits)."""
+    (gz PAFs shard the tokenize over the uncompressed bytes; inflate is
+    per-host but the expensive part splits)."""
     import gzip
 
     from gci_tpu.io.paf import _read_paf_python

@@ -1,9 +1,10 @@
-"""Fused single-chip device backend: kernel parity + run_gci byte parity.
+"""Single-device resident backend: scan parity + run_gci byte parity.
 
 The production ``depth_backend="device"`` path (gci_tpu.depth.fused) must
 produce byte-identical outputs to the events backend (itself golden-pinned
-against the reference), and the masked fused kernel must match its XLA
-fallback and the numpy oracle exactly.
+against the reference), and the packed-word scan (Triton kernel in
+interpret mode, and its XLA reference) must match the numpy oracle of the
+gap-masked issue scan exactly.
 """
 import gzip
 import os
@@ -13,11 +14,7 @@ import pytest
 
 from gci_tpu.depth.accum import GenomeLayout
 from gci_tpu.depth.fused import DeviceDepth, compact_indices
-from gci_tpu.depth.pallas_scan import (
-    LANES,
-    fused_depth_scan_masked,
-    fused_depth_scan_masked_xla,
-)
+from gci_tpu.depth.scan import fused_depth_scan_packed_xla, packed_scan_kernel
 from gci_tpu.pipeline import run_gci
 from tests.fixtures import make_bam, make_fasta, random_reads
 
@@ -40,39 +37,55 @@ def _oracle(delta, gap, valid, lo, hi):
     return raw, rise, fall, change
 
 
-@pytest.mark.parametrize("rows", [8, 16])
+def _events(mask):
+    """+1/-1 interval events whose prefix sum is the 0/1 ``mask``."""
+    m = mask.astype(np.int32)
+    return m - np.concatenate(([0], m[:-1]))
+
+
+def _packed_scans(delta, gap, valid, block):
+    """Both packed-word scans of (delta, gap mask, valid mask), decoded into
+    (raw, rise, fall, change) like ``_oracle``."""
+    word = (delta << 2) + 2 * _events(gap) + _events(valid)
+    for raw, flags in (
+        packed_scan_kernel(word, -1, 0, block=block, interpret=True),
+        fused_depth_scan_packed_xla(word, -1, 0),
+    ):
+        f = np.asarray(flags)
+        yield np.asarray(raw), f & 1, f & 2, f & 4
+
+
+@pytest.mark.parametrize("block", [128, 256])
 @pytest.mark.parametrize("n_chunks", [1, 3])
-def test_masked_kernel_matches_oracle(rng, rows, n_chunks):
-    total = n_chunks * rows * LANES
-    delta = rng.integers(-2, 3, size=total).astype(np.int32)
+def test_masked_kernel_matches_oracle(rng, block, n_chunks):
+    total = n_chunks * block
+    delta = np.zeros(total, np.int32)
+    idx = rng.integers(0, total, total // 8)
+    np.add.at(delta, idx, 1)
+    np.add.at(delta, np.minimum(idx + rng.integers(1, 40, idx.shape[0]), total - 1), -1)
     gap = (rng.random(total) < 0.15).astype(np.int8)
     valid = (rng.random(total) < 0.8).astype(np.int8)
     want = _oracle(delta, gap, valid, -1, 0)
-    got_k = fused_depth_scan_masked(
-        delta, gap, valid, -1, 0, rows=rows, interpret=True
-    )
-    got_x = fused_depth_scan_masked_xla(delta, gap, valid, -1, 0)
-    for got in (got_k, got_x):
-        np.testing.assert_array_equal(np.asarray(got[0]), want[0])
+    for got in _packed_scans(delta, gap, valid, block):
+        np.testing.assert_array_equal(got[0], want[0])
         for j in (1, 2, 3):
-            np.testing.assert_array_equal(np.asarray(got[j]) != 0, want[j])
+            np.testing.assert_array_equal(got[j] != 0, want[j])
 
 
 def test_masked_kernel_gap_at_chunk_boundary(rng):
-    # gap covering the last slot of chunk 0 and first of chunk 1: the seed
-    # gap/valid scalars must make the chunk-1 edge flags exact
-    rows = 8
-    chunk = rows * LANES
-    total = 2 * chunk
+    # gap covering the last slot of block 0 and first of block 1: the
+    # block carry must make the block-1 edge flags exact
+    block = 128
+    total = 2 * block
     delta = np.zeros(total, np.int32)
     delta[0] = 3  # depth 3 everywhere
     gap = np.zeros(total, np.int8)
-    gap[chunk - 4 : chunk + 4] = 1  # masked depth dips to 0 across boundary
+    gap[block - 4 : block + 4] = 1  # masked depth dips to 0 across boundary
     valid = np.ones(total, np.int8)
     want = _oracle(delta, gap, valid, -1, 0)
-    got = fused_depth_scan_masked(delta, gap, valid, -1, 0, rows=rows, interpret=True)
-    for j in (1, 2, 3):
-        np.testing.assert_array_equal(np.asarray(got[j]) != 0, want[j])
+    for got in _packed_scans(delta, gap, valid, block):
+        for j in (1, 2, 3):
+            np.testing.assert_array_equal(got[j] != 0, want[j])
 
 
 def test_compact_indices_roundtrip(rng):
@@ -114,7 +127,7 @@ def test_device_depth_matches_numpy_oracle(rng):
 
     masked = dd.mask_gaps(gaps)
     key = (float(-1), float(0), 15)
-    assert key in masked._edge_cache  # kernel-extracted, no extra pass
+    assert key in masked._edge_cache  # scan-extracted, no extra pass
     want_masked = {t: a.copy() for t, a in want_raw.items()}
     for t, segs in gaps.items():
         for s, e in segs:
@@ -233,7 +246,7 @@ def test_device_chrs_and_paf_curation_matches_events(inputs, tmp_path):
 
 
 def test_fallback_flags_kernel_path_equals_packed(rng, monkeypatch):
-    """The >2^29-reads guard routes from_reads onto the r4 flags kernel
+    """The >2^29-reads guard routes from_reads onto the unpacked flags scan
     (gci_tpu.depth.fused._fused_fn) — force it with a tiny limit and assert
     it produces the same depth/edges/events as the packed production path."""
     import gci_tpu.depth.fused as fused

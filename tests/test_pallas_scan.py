@@ -1,206 +1,186 @@
-"""Fused pallas scan kernel vs numpy oracle (interpret mode on CPU)."""
+"""Genome-axis scans: the Triton kernels (interpret mode on the CPU) and
+their plain XLA references against the numpy oracle, the kernel choice and
+padding, and the compiled kernels on a GPU (``gpu`` marker)."""
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
-from gci_tpu.depth.pallas_scan import LANES, fused_depth_scan
+from gci_tpu.depth.scan import (
+    BLOCK,
+    fused_depth_scan_flags_xla,
+    fused_depth_scan_packed_xla,
+    pad_to_block,
+    packed_scan_kernel,
+    prefix_sum_kernel,
+    use_kernel,
+)
 
 
-@pytest.mark.parametrize("rows", [8, 16])
-@pytest.mark.parametrize("n_chunks", [1, 3])
-def test_fused_scan_matches_numpy(rng, rows, n_chunks):
-    total = n_chunks * rows * LANES
-    delta = rng.integers(-2, 3, size=total).astype(np.int32)
-    valid = (rng.random(total) < 0.8).astype(np.int8)
-    depth, rise, fall = fused_depth_scan(
-        delta, valid, -1, 0, rows=rows, interpret=True
-    )
-    want_depth = np.cumsum(delta).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(depth), want_depth)
-    m = (want_depth > -1) & (want_depth <= 0) & (valid != 0)
+def _oracle(word, lo, hi):
+    """numpy (raw_depth, flags) of a packed word axis."""
+    sw = np.cumsum(word.astype(np.int64)).astype(np.int32)
+    raw = sw >> 2
+    gap = (sw & 2) != 0
+    m = (np.where(gap, 0, raw) > lo) & (np.where(gap, 0, raw) <= hi) & ((sw & 1) != 0)
     prev = np.concatenate(([False], m[:-1]))
-    np.testing.assert_array_equal(np.asarray(rise) != 0, m & ~prev)
-    np.testing.assert_array_equal(np.asarray(fall) != 0, ~m & prev)
+    change = np.concatenate(([True], raw[1:] != raw[:-1]))
+    flags = (m & ~prev) + 2 * (~m & prev) + 4 * change + 8 * gap
+    return raw, flags.astype(np.int8)
+
+
+def _disjoint(rng, total, n):
+    """(starts, stops) of sorted DISJOINT intervals (the packed word's
+    precondition: gap/valid event prefix sums stay in {0, 1})."""
+    cuts = np.sort(rng.choice(total, size=2 * n, replace=False))
+    return cuts[0::2], cuts[1::2]
+
+
+def _random_word(rng, total, n_reads=500, max_span=300):
+    word = np.zeros(total, np.int32)
+    idx = rng.integers(0, total, n_reads)
+    np.add.at(word, idx, 1 << 2)
+    np.add.at(
+        word, np.minimum(idx + rng.integers(1, max_span, n_reads), total - 1),
+        -(1 << 2),
+    )
+    gs, ge = _disjoint(rng, total, 12)
+    np.add.at(word, gs, 2)
+    np.add.at(word, ge, -2)
+    vs, ve = _disjoint(rng, total, 8)
+    np.add.at(word, vs, 1)
+    np.add.at(word, ve, -1)
+    return word
+
+
+def _assert_scan(word, lo, hi, block):
+    want = _oracle(word, lo, hi)
+    for got in (
+        packed_scan_kernel(word, lo, hi, block=block, interpret=True),
+        fused_depth_scan_packed_xla(word, lo, hi),
+    ):
+        np.testing.assert_array_equal(np.asarray(got[0]), want[0])
+        np.testing.assert_array_equal(np.asarray(got[1]), want[1])
+
+
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("n_chunks", [1, 3])
+def test_fused_scan_matches_numpy(rng, block, n_chunks):
+    """Kernel (interpret) and XLA reference == numpy, at several block
+    counts."""
+    total = n_chunks * block
+    _assert_scan(_random_word(rng, total, 40, 60), -1, 0, block)
 
 
 def test_fused_scan_chunk_boundary_run(rng):
-    # a run spanning a chunk boundary must not produce spurious edges
-    rows = 8
-    total = 2 * rows * LANES
-    delta = np.zeros(total, dtype=np.int32)
-    # depth stays 0 everywhere -> one run over all valid positions
-    valid = np.ones(total, dtype=np.int8)
-    depth, rise, fall = fused_depth_scan(delta, valid, -1, 0, rows=rows, interpret=True)
-    assert np.asarray(rise).sum() == 1 and np.asarray(rise)[0] == 1
-    assert np.asarray(fall).sum() == 0
+    # a run spanning a block boundary must not produce spurious edges
+    block = 128
+    word = np.zeros(3 * block, np.int32)
+    word[0] = 1  # valid everywhere, depth 0 everywhere -> one issue run
+    depth, flags = packed_scan_kernel(word, -1, 0, block=block, interpret=True)
+    rise = np.asarray(flags) & 1
+    assert rise.sum() == 1 and rise[0] == 1
+    assert (np.asarray(flags) & 2).sum() == 0
+    _assert_scan(word, -1, 0, block)
+
+
+def test_fused_scan_gap_at_block_boundary():
+    # a gap covering the last slot of block 0 and the first of block 1:
+    # the carry must bring the gap state into block 1
+    block = 128
+    word = np.zeros(2 * block, np.int32)
+    word[0] = (3 << 2) + 1  # depth 3, valid everywhere
+    word[block - 4] += 2
+    word[block + 4] -= 2
+    _assert_scan(word, -1, 0, block)
+    _, flags = packed_scan_kernel(word, -1, 0, block=block, interpret=True)
+    f = np.asarray(flags)
+    assert f[block - 4] & 1 and f[block + 4] & 2  # masked issue run
+    assert (f[block - 4 : block + 4] & 8).all()
+
+
+def test_fused_scan_carry_into_first_element():
+    # a depth change and a fall exactly at a block's first slot are seen
+    # through the carry alone
+    block = 128
+    word = np.zeros(3 * block, np.int32)
+    word[0] = 1
+    word[block] = 1 << 2   # depth 0 -> 1 at block 1's first slot
+    word[2 * block] = -(1 << 2)  # back to 0 at block 2's first slot
+    _assert_scan(word, -1, 0, block)
+    _, flags = packed_scan_kernel(word, -1, 0, block=block, interpret=True)
+    f = np.asarray(flags)
+    assert f[block] == 2 + 4 and f[2 * block] == 1 + 4
 
 
 def test_fused_scan_large_magnitude_deltas(rng):
-    # pins the MXU lane-scan's 16-bit hi/lo split: deltas large enough that
-    # the within-row cumsum crosses the 2^16 boundary both ways and the
-    # (hi << 16) + lo recombination must wrap exactly like int32 cumsum
-    rows = 8
-    total = 2 * rows * LANES
-    delta = rng.integers(-(2**23), 2**23, size=total).astype(np.int32)
-    valid = np.ones(total, dtype=np.int8)
-    depth, rise, fall = fused_depth_scan(delta, valid, -1, 0, rows=rows, interpret=True)
-    np.testing.assert_array_equal(np.asarray(depth), np.cumsum(delta).astype(np.int32))
+    # int32 wraparound of the block carries must match a plain cumsum
+    block = 128
+    x = rng.integers(-(2**23), 2**23, size=5 * block).astype(np.int32)
+    got = prefix_sum_kernel(x, block=block, interpret=True)
+    np.testing.assert_array_equal(np.asarray(got), np.cumsum(x).astype(np.int32))
 
 
-@pytest.mark.skipif(
-    __import__("os").environ.get("GCI_TPU_TESTS") != "1",
-    reason="compiled-kernel exactness needs a real TPU; set GCI_TPU_TESTS=1",
-)
-def test_fused_scan_large_magnitude_deltas_compiled_tpu(tmp_path):
-    """The hi/lo 16-bit split exactness on the COMPILED kernel (not
-    interpret mode): the riskiest part of the MXU lane-scan runs on real
-    hardware.  Opt-in because the test session pins JAX to CPU and a cold
-    Mosaic compile can take minutes; run in a clean subprocess that keeps
-    the environment's default (TPU) platform."""
-    import os
-    import subprocess
-    import sys
-
-    script = tmp_path / "tpu_check.py"
-    script.write_text(
-        "import numpy as np\n"
-        "from gci_tpu.utils.jaxcache import enable_compile_cache\n"
-        "from gci_tpu.depth.pallas_scan import LANES, fused_depth_scan\n"
-        "enable_compile_cache()\n"
-        "rng = np.random.default_rng(7)\n"
-        "rows = 8\n"
-        "total = 2 * rows * LANES\n"
-        "delta = rng.integers(-(2**23), 2**23, size=total).astype(np.int32)\n"
-        "valid = np.ones(total, dtype=np.int8)\n"
-        "depth, rise, fall = fused_depth_scan(delta, valid, -1, 0, rows=rows)\n"
-        "np.testing.assert_array_equal(\n"
-        "    np.asarray(depth), np.cumsum(delta).astype(np.int32))\n"
-        "# the packed production kernel, compiled, vs its XLA oracle\n"
-        "from gci_tpu.depth.pallas_scan import (\n"
-        "    fused_depth_scan_flags, fused_depth_scan_flags_xla)\n"
-        "flags = ((rng.random(total) < 0.1).astype(np.int8)\n"
-        "         + (rng.random(total) < 0.9).astype(np.int8) * 2)\n"
-        "d2, o2 = fused_depth_scan_flags(delta, flags, -1, 0, rows=rows)\n"
-        "dw, ow = fused_depth_scan_flags_xla(delta, flags, -1, 0)\n"
-        "np.testing.assert_array_equal(np.asarray(d2), np.asarray(dw))\n"
-        "np.testing.assert_array_equal(np.asarray(o2), np.asarray(ow))\n"
-        "# the folded-input packed-word kernel, compiled, vs its XLA twin\n"
-        "from gci_tpu.depth.pallas_scan import (\n"
-        "    fused_depth_scan_packed, fused_depth_scan_packed_xla)\n"
-        "word = np.zeros(total, np.int32)\n"
-        "sidx = np.sort(rng.integers(0, total - 64, 40))\n"
-        "np.add.at(word, sidx, 1 << 2)\n"
-        "np.add.at(word, sidx + rng.integers(1, 64, 40), -(1 << 2))\n"
-        "word[0] += 1  # valid everywhere\n"
-        "word[100] += 2\n"
-        "word[400] -= 2  # one gap interval\n"
-        "d3, o3 = fused_depth_scan_packed(word, -1, 0, rows=rows)\n"
-        "dp, op = fused_depth_scan_packed_xla(word, -1, 0)\n"
-        "np.testing.assert_array_equal(np.asarray(d3), np.asarray(dp))\n"
-        "np.testing.assert_array_equal(np.asarray(o3), np.asarray(op))\n"
-        "print('TPU_COMPILED_OK')\n"
-    )
-    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    r = subprocess.run(
-        [sys.executable, str(script)], env=env, cwd=repo,
-        capture_output=True, timeout=900,
-    )
-    assert r.returncode == 0, r.stderr.decode(errors="replace")[-3000:]
-    assert b"TPU_COMPILED_OK" in r.stdout
+@pytest.mark.parametrize("n_blocks", [1, 2, 7])
+def test_prefix_sum_kernel_matches_cumsum(rng, n_blocks):
+    block = 256
+    x = rng.integers(-3, 4, size=n_blocks * block).astype(np.int32)
+    got = prefix_sum_kernel(x, block=block, interpret=True)
+    np.testing.assert_array_equal(np.asarray(got), np.cumsum(x))
 
 
 def test_fused_scan_flags_matches_xla(rng):
-    """Packed-stream kernel (gap+valid in one byte; rise/fall/change bits
-    in one byte) vs the XLA oracle, randomized."""
-    from gci_tpu.depth.pallas_scan import (
-        fused_depth_scan_flags,
-        fused_depth_scan_flags_xla,
-    )
-
-    rows = 8
+    """Unpacked flags reference (gap+valid in one byte; rise/fall/change
+    bits out) vs the numpy oracle, randomized."""
     for trial in range(6):
-        n_chunks = int(rng.integers(1, 4))
-        total = n_chunks * rows * LANES
+        total = int(rng.integers(1, 4)) * 1000
         delta = np.zeros(total, np.int32)
         idx = rng.integers(0, total, 500)
         np.add.at(delta, idx, 1)
         np.add.at(delta, np.minimum(idx + rng.integers(1, 300, 500), total - 1), -1)
-        flags = (
-            (rng.random(total) < 0.1).astype(np.int8)  # gaps
-            + (rng.random(total) < 0.9).astype(np.int8) * 2  # valid
-        )
+        gap = (rng.random(total) < 0.1).astype(np.int8)
+        valid = (rng.random(total) < 0.9).astype(np.int8)
         lo, hi = -1, int(rng.integers(0, 3))
-        got = fused_depth_scan_flags(
-            delta, flags, lo, hi, rows=rows, interpret=True
-        )
-        want = fused_depth_scan_flags_xla(delta, flags, lo, hi)
-        np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
-        np.testing.assert_array_equal(
-            np.asarray(got[1]), np.asarray(want[1]), err_msg=f"trial {trial}"
-        )
+        raw, out = fused_depth_scan_flags_xla(delta, gap + valid * 2, lo, hi)
+        want_raw = np.cumsum(delta).astype(np.int32)
+        masked = np.where(gap != 0, 0, want_raw)
+        m = (masked > lo) & (masked <= hi) & (valid != 0)
+        prev = np.concatenate(([False], m[:-1]))
+        change = np.concatenate(([True], want_raw[1:] != want_raw[:-1]))
+        want = (m & ~prev) + 2 * (~m & prev) + 4 * change
+        np.testing.assert_array_equal(np.asarray(raw), want_raw)
+        np.testing.assert_array_equal(np.asarray(out), want, err_msg=f"trial {trial}")
 
 
 def test_fused_scan_flags_equivalent_to_masked(rng):
-    """The packed kernel's bits decode to exactly the unpacked kernel's
-    three streams (same math, fewer streams)."""
-    from gci_tpu.depth.pallas_scan import (
-        fused_depth_scan_flags,
-        fused_depth_scan_masked,
-    )
-
-    rows = 8
-    total = 3 * rows * LANES
+    """The flags reference's bits decode to the three per-slot streams of
+    the gap-masked issue scan."""
+    total = 3000
     delta = np.zeros(total, np.int32)
     idx = rng.integers(0, total, 800)
     np.add.at(delta, idx, 1)
     np.add.at(delta, np.minimum(idx + 120, total - 1), -1)
     gap = (rng.random(total) < 0.08).astype(np.int8)
     valid = (rng.random(total) < 0.95).astype(np.int8)
-    flags = gap + valid * 2
-    d1, r1, f1, c1 = fused_depth_scan_masked(
-        delta, gap, valid, -1, 0, rows=rows, interpret=True
-    )
-    d2, out = fused_depth_scan_flags(delta, flags, -1, 0, rows=rows, interpret=True)
+    raw, out = fused_depth_scan_flags_xla(delta, gap + valid * 2, -1, 0)
     out = np.asarray(out)
-    np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
-    np.testing.assert_array_equal(np.asarray(r1), out & 1)
-    np.testing.assert_array_equal(np.asarray(f1), (out >> 1) & 1)
-    np.testing.assert_array_equal(np.asarray(c1), (out >> 2) & 1)
-
-
-def _random_disjoint_events(rng, total, n, max_len):
-    """(starts, stops) of sorted DISJOINT intervals (the packed word's
-    precondition: event prefix sums stay in {0, 1})."""
-    cuts = np.sort(rng.choice(total, size=2 * n, replace=False))
-    return cuts[0::2], cuts[1::2]
+    depth = np.cumsum(delta)
+    m = (np.where(gap != 0, 0, depth) == 0) & (valid != 0)
+    np.testing.assert_array_equal(out & 1, m & ~np.concatenate(([False], m[:-1])))
+    np.testing.assert_array_equal((out >> 1) & 1, ~m & np.concatenate(([False], m[:-1])))
+    np.testing.assert_array_equal((out >> 2) & 1, np.concatenate(([True], depth[1:] != depth[:-1])))
 
 
 def test_fused_scan_packed_matches_xla(rng):
-    """Folded-input packed-word kernel vs its XLA twin, randomized."""
-    from gci_tpu.depth.pallas_scan import (
-        fused_depth_scan_packed,
-        fused_depth_scan_packed_xla,
-    )
-
-    rows = 8
+    """Packed-word kernel (interpret) vs its XLA reference, randomized over
+    block counts and thresholds."""
+    block = 128
     for trial in range(6):
-        n_chunks = int(rng.integers(1, 4))
-        total = n_chunks * rows * LANES
-        word = np.zeros(total, np.int32)
-        idx = rng.integers(0, total, 500)
-        np.add.at(word, idx, 1 << 2)
-        np.add.at(
-            word, np.minimum(idx + rng.integers(1, 300, 500), total - 1),
-            -(1 << 2),
-        )
-        gs, ge = _random_disjoint_events(rng, total, 12, 200)
-        np.add.at(word, gs, 2)
-        np.add.at(word, ge, -2)
-        vs, ve = _random_disjoint_events(rng, total, 8, 400)
-        np.add.at(word, vs, 1)
-        np.add.at(word, ve, -1)
+        total = int(rng.integers(1, 6)) * block
+        word = _random_word(rng, total, 200, 100)
         lo, hi = -1, int(rng.integers(0, 3))
-        got = fused_depth_scan_packed(word, lo, hi, rows=rows, interpret=True)
+        got = packed_scan_kernel(word, lo, hi, block=block, interpret=True)
         want = fused_depth_scan_packed_xla(word, lo, hi)
         np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
         np.testing.assert_array_equal(
@@ -209,21 +189,15 @@ def test_fused_scan_packed_matches_xla(rng):
 
 
 def test_fused_scan_packed_equivalent_to_flags(rng):
-    """The packed word's outputs decode to exactly the r4 flags kernel's
-    streams (same math, one fewer input stream), bit3 = the gap indicator."""
-    from gci_tpu.depth.pallas_scan import (
-        fused_depth_scan_flags,
-        fused_depth_scan_packed,
-    )
-
-    rows = 8
-    total = 3 * rows * LANES
+    """The packed word's outputs decode to exactly the flags reference's
+    streams (same math, one input stream), bit3 = the gap indicator."""
+    total = 3 * 1024
     delta = np.zeros(total, np.int32)
     idx = rng.integers(0, total, 800)
     np.add.at(delta, idx, 1)
     np.add.at(delta, np.minimum(idx + 120, total - 1), -1)
-    gs, ge = _random_disjoint_events(rng, total, 10, 150)
-    vs, ve = _random_disjoint_events(rng, total, 6, 500)
+    gs, ge = _disjoint(rng, total, 10)
+    vs, ve = _disjoint(rng, total, 6)
     gd = np.zeros(total, np.int32)
     np.add.at(gd, gs, 1)
     np.add.at(gd, ge, -1)
@@ -234,11 +208,67 @@ def test_fused_scan_packed_equivalent_to_flags(rng):
     valid = (np.cumsum(vd) > 0).astype(np.int8)
     word = (delta << 2) + gd * 2 + vd
 
-    d1, o1 = fused_depth_scan_flags(
-        delta, gap + valid * 2, -1, 0, rows=rows, interpret=True
+    d1, o1 = fused_depth_scan_flags_xla(delta, gap + valid * 2, -1, 0)
+    for d2, o2 in (
+        fused_depth_scan_packed_xla(word, -1, 0),
+        packed_scan_kernel(word, -1, 0, block=1024, interpret=True),
+    ):
+        o2 = np.asarray(o2)
+        np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
+        np.testing.assert_array_equal(np.asarray(o1), o2 & 7)
+        np.testing.assert_array_equal(gap, (o2 >> 3) & 1)
+
+
+@pytest.mark.parametrize(
+    "platform, n, want",
+    [
+        ("gpu", BLOCK, True),
+        ("gpu", 5 * BLOCK, True),
+        ("gpu", 5 * BLOCK + 1, False),  # not whole blocks: XLA reference
+        ("gpu", 0, False),
+        ("cpu", 5 * BLOCK, False),
+    ],
+)
+def test_use_kernel_by_platform(platform, n, want):
+    assert use_kernel(platform, n) is want
+
+
+@pytest.mark.parametrize("n", [1, BLOCK - 1, BLOCK, BLOCK + 1, 7 * BLOCK + 3])
+def test_pad_to_block(n):
+    p = pad_to_block(n)
+    assert p % BLOCK == 0 and n <= p < n + BLOCK
+    assert use_kernel("gpu", p)
+
+
+def test_resident_axes_are_whole_blocks():
+    """Every production axis takes the kernel on a GPU: the resident pad,
+    the sharded per-shard pad and the streamed chunk."""
+    from gci_tpu.depth.fused import DeviceDepth
+    from gci_tpu.depth.sharded import ShardedDepth
+    from gci_tpu.depth.streamed import resident_chunk_slots
+    from gci_tpu.parallel import make_mesh
+
+    for total in (8193, 3_000_017):
+        assert use_kernel("gpu", DeviceDepth.pad_total_for(total))
+        assert use_kernel("gpu", resident_chunk_slots(total, 4096))
+        mesh = make_mesh(4, dp=2)
+        pad = ShardedDepth._pad_total(mesh, total)
+        assert pad >= total and use_kernel("gpu", pad // mesh.shape["gp"])
+
+
+@pytest.mark.gpu
+def test_scans_compiled_gpu(gpu):
+    """The compiled Triton kernels == their XLA references on the card.
+    This process is pinned to the CPU, so the check runs in a child that
+    keeps jax's default (GPU) platform."""
+    code = (
+        "from tests.scan_checks import check_compiled_scans\n"
+        f"check_compiled_scans([{BLOCK}, {BLOCK} * 37, {BLOCK} * 4096])\n"
+        "print('COMPILED_OK')\n"
     )
-    d2, o2 = fused_depth_scan_packed(word, -1, 0, rows=rows, interpret=True)
-    o2 = np.asarray(o2)
-    np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
-    np.testing.assert_array_equal(np.asarray(o1), o2 & 7)
-    np.testing.assert_array_equal(gap, (o2 >> 3) & 1)
+    r = subprocess.run(
+        [sys.executable, "-c", code], env=gpu, cwd=gpu["PYTHONPATH"],
+        capture_output=True, timeout=900,
+    )
+    assert r.returncode == 0, r.stderr.decode(errors="replace")[-3000:]
+    assert b"COMPILED_OK" in r.stdout

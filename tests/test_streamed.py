@@ -1,9 +1,9 @@
-"""Streamed (>HBM) depth: chunked scan, event extraction, big-genome layout.
+"""Streamed depth: chunked scan, event extraction, big-genome layout.
 
-Covers VERDICT r01 items: the streamed Pallas-tile chunk path, the
-STREAM_SLOT_LIMIT auto-switch, run-length event extraction with cross-chunk
-carries (so a >HBM genome yields BEDs without per-base arrays), and the
-int64-safe sharded packing of a simulated 3.1 Gbp x 2-type layout.
+Covers the block-aligned streamed chunk path, the stream_slot_limit
+auto-switch, run-length event extraction with cross-chunk carries (so a
+streamed genome yields BEDs without per-base arrays), and the int64-safe
+sharded packing of a simulated 3.1 Gbp x 2-type layout.
 """
 import gzip
 import os
@@ -35,25 +35,25 @@ def _random_reads(rng, n):
 
 
 def test_streamed_pallas_tile_path(rng):
-    # pallas kernel in interpret mode, small rows: chunk = 8*128 = 1024 slots
-    # -> many chunks, runs straddling chunk borders
+    # chunks are whole scan blocks: 1024 requested -> one 2048-slot block
+    # per chunk -> 8 chunks, runs straddling chunk borders
+    from gci_tpu.depth.scan import BLOCK
+    from gci_tpu.depth.streamed import resident_chunk_slots
+
     layout = GenomeLayout.from_targets(TARGETS)
+    assert resident_chunk_slots(layout.total_slots, 1024) == BLOCK
     tid, start, end = _random_reads(rng, 300)
     want = accumulate_depth_numpy(layout, tid, start, end, 15)
-    got = accumulate_depth_streamed(
-        layout, tid, start, end, 15, chunk_slots=1024, kernel="pallas",
-        pallas_rows=8,
-    )
+    got = accumulate_depth_streamed(layout, tid, start, end, 15, chunk_slots=1024)
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("kernel", ["jnp", "pallas"])
-def test_streamed_events_match_oracle(rng, kernel):
+@pytest.mark.parametrize("chunk_slots", [2048, 6144, 1 << 20])
+def test_streamed_events_match_oracle(rng, chunk_slots):
     layout = GenomeLayout.from_targets(TARGETS)
     tid, start, end = _random_reads(rng, 500)
     got = events_from_reads_streamed(
-        layout, tid, start, end, 15, chunk_slots=1024, kernel=kernel,
-        pallas_rows=8 if kernel == "pallas" else None,
+        layout, tid, start, end, 15, chunk_slots=chunk_slots,
     )
     want = events_dict_from_reads(layout, tid, start, end, 15)
     for t in TARGETS:
@@ -66,9 +66,7 @@ def test_streamed_events_bed_parity(rng):
 
     layout = GenomeLayout.from_targets(TARGETS)
     tid, start, end = _random_reads(rng, 120)  # sparse -> zero-depth issues
-    ev = events_from_reads_streamed(
-        layout, tid, start, end, 15, chunk_slots=2000, kernel="jnp"
-    )
+    ev = events_from_reads_streamed(layout, tid, start, end, 15, chunk_slots=2000)
     gaps = {"a": [(100, 300)], "b": [(6900, 7000)]}
     flat = accumulate_depth_numpy(layout, tid, start, end, 15)
     want_arrays = depth_dict_from_flat(layout, flat)
@@ -85,8 +83,8 @@ def test_streamed_events_bed_parity(rng):
 
 
 def test_auto_switch_to_streamed(rng, monkeypatch):
-    # force the auto limit low and verify accumulate_depth(auto/device on a
-    # non-cpu-looking config) routes through the streamed path
+    # force the limit low and verify accumulate_depth(device) routes
+    # through the streamed path
     import gci_tpu.depth.accum as accum
     import gci_tpu.depth.streamed as streamed
 
@@ -95,9 +93,9 @@ def test_auto_switch_to_streamed(rng, monkeypatch):
 
     def spy(*args, **kwargs):
         called["yes"] = True
-        return real(*args, **kwargs, chunk_slots=4000, kernel="jnp")
+        return real(*args, **kwargs, chunk_slots=4000)
 
-    monkeypatch.setattr(accum, "STREAM_SLOT_LIMIT", 10_000)
+    monkeypatch.setattr(accum, "stream_slot_limit", lambda: 10_000)
     monkeypatch.setattr(streamed, "accumulate_depth_streamed", spy)
     layout = GenomeLayout.from_targets(TARGETS)  # 16,153 slots > 10,000
     tid, start, end = _random_reads(rng, 200)
@@ -177,7 +175,7 @@ def test_run_gci_streamed_backend_matches_events(tmp_path):
 
 
 def test_overlap_accumulator_matches_events_with_duplicates(rng):
-    """Pack<->scatter overlap (VERDICT r3 'Next #5'): incremental last-wins
+    """Pack<->scatter overlap: incremental last-wins
     fold + retraction over multiple chunks equals the batch dedup exactly,
     including names replaced across chunks (and replaced twice)."""
     from gci_tpu.depth.eventspace import events_dict_from_reads

@@ -92,7 +92,7 @@ def test_plot_rejects_bad_image_type(tmp_path):
 def test_window_average_events_matches_array(rng, ws):
     """Event-space window averaging is bit-identical to the per-base path
     (positions AND values), including zero runs, segment flushes and
-    max-depth clamping (VERDICT r2 item 7)."""
+    max-depth clamping."""
     from gci_tpu.depth.eventspace import DepthEvents
 
     for trial in range(20):
@@ -141,7 +141,7 @@ def test_plot_files_written_from_events(tmp_path, rng):
 
 def test_rendered_figures_match_snapshots(tmp_path):
     """Pixel-level regression guard for plot_target's transliterated visual
-    constants (VERDICT r3 'Weak #6'): the rendered PNGs for a fixed
+    constants: the rendered PNGs for a fixed
     synthetic input must hash-match the committed fixtures.  Regenerate
     after an intentional visual change: python -m tests.plot_snapshots"""
     import json
@@ -171,7 +171,7 @@ def test_rendered_figures_match_snapshots(tmp_path):
 
 
 def test_snapshot_mismatch_ticks_and_ref_track(tmp_path):
-    """bamsnap-detail parity (VERDICT r4 'Next #9'): the mismatch walk
+    """bamsnap-detail parity: the mismatch walk
     returns exactly the reference positions where SEQ differs (M/X compared,
     '=' trusted, I/S skip query, D/N skip reference), and the rendered
     figure carries the reference base track."""
